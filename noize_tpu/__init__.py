@@ -1,6 +1,6 @@
-"""noize_tpu — TPU-native procedural terrain framework.
+"""noize_tpu — procedural terrain framework on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 xshazwar/noize-job (Unity Burst/Jobs).  See SURVEY.md for the layer map of
 the reference, PARITY.md for the component mapping, README.md for usage.
 

@@ -5,7 +5,7 @@ MeshBakery.cs:16-110) and the bake jobs (Mesh/Job/BakeSingleMeshJob.cs,
 BakeManyMeshJob.cs).
 
 Unity's "bake" precomputes physics-collider acceleration structures on
-worker threads.  The TPU-native analog of "make the mesh consumable by the
+worker threads.  The device-array analog of "make the mesh consumable by the
 engine" is host materialization: wait for the device arrays, convert to
 NumPy, and (optionally) hand off to a callback.  Dedup-by-uuid and batch
 limits are preserved (MeshBakery.cs:66-73)."""

@@ -78,15 +78,7 @@ def make_tile_step(
             noise_size=noise_size,
         )
         h = _blur_chain(h, 5, 1.0, blur_iterations)
-        # single-launch fused pallas flow on TPU (1.1 ms vs ~3-9 ms XLA at
-        # 2048², bit-exact); XLA scan elsewhere
-        if (jax.default_backend() == "tpu" and res % 128 == 0
-                and 2 * flow_iterations + 1 <= 128):
-            from ..ops.pallas.flow_pl import flow_map_fused
-
-            flow_v = flow_map_fused(h, iterations=flow_iterations, block=128)
-        else:
-            flow_v = _flow.flow_map(h, iterations=flow_iterations)
+        flow_v = _flow.flow_map(h, iterations=flow_iterations)
         state = init_state(h, key)
         for _ in range(erosion_cycles):
             state = erosion_cycle(state, settings, meta)
@@ -99,9 +91,8 @@ def make_tile_step(
         if emit_mesh:
             # LiveErosion.ScheduleMeshUpdate parity: Resolution = TILE_RES,
             # margin samples read from the generator grid (LiveErosion.cs:302-315).
-            # "planes" emits the component-major MeshPlanes layout — the
-            # TPU-native choice (see ops.mesh.MeshPlanes); "arrays" the
-            # (N, 3/4/2) MeshArrays SoA.
+            # "planes" emits the component-major MeshPlanes layout (see
+            # ops.mesh.MeshPlanes); "arrays" the (N, 3/4/2) MeshArrays SoA.
             mesher = (_mesh.heightmap_mesh_overshoot_planes
                       if mesh_layout == "planes"
                       else _mesh.heightmap_mesh_overshoot)

@@ -7,7 +7,7 @@ Reference: ``TileRequest``/``TileSetMeta``
 A tile set is a grid of square tiles.  Each tile is *generated* at
 ``generator_res²`` (tile + margin overlap so neighboring tiles agree without
 communication), then meshed at ``mesh_resolution²`` (tile + 2·margin_verts)
-by center-cropping — SURVEY.md §5 "long-context" analog.  On TPU the margin
+by center-cropping — SURVEY.md §5 "long-context" analog.  On a device mesh the margin
 recompute can be replaced by sharded halo exchange (noize_tpu.parallel), but
 the single-tile geometry contract is identical.
 """

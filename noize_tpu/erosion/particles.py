@@ -6,7 +6,7 @@ Reference: ``BeyerParticle.DescendSimultaneous``
 by ``FlowMaster.BeyerSimultaneousDescentSingle`` / the job set in
 ``MultiThreadErosionJob.cs``.
 
-TPU-first design (SURVEY.md §7.5): the reference runs one worker thread per
+Design (SURVEY.md §7.5): the reference runs one worker thread per
 particle with a per-particle ``while !dead`` loop, each step appending an
 ``ErosiveEvent`` into a parallel multimap that a later job reduces per cell.
 Here all N particles advance together through a ``lax.scan`` over MAXAGE
@@ -104,8 +104,7 @@ def _gather_step_values(combo, row_i, col_i, res, with_plants=False,
                         origin=None, shape=None):
     """ALL of a step's map lookups in ONE gather: 8 all-heights neighbors +
     the particle's WIH + flow (+ plant density when the vegetation friction
-    extension is on).  A TPU gather op costs ~0.13 ms *fixed* regardless of
-    element count, so the step must issue exactly one.
+    extension is on): one gather op per step instead of eleven.
 
     ``combo`` = concat([wih.ravel(), all_h.ravel(), flow.ravel()[,
     plants.ravel()]]).
@@ -147,8 +146,7 @@ def _gather_step_values_wf(combo, row_i, col_i, res, fhc, with_plants=False,
     neighbor all-heights are recomputed post-gather as
     ``wih + FLOW_HEIGHT_CONTRIBUTION·flow`` — the identical elementwise f32
     ops the precomputed all_h map applies, so results are bit-exact while
-    the gather's source table shrinks by a third (the TPU gather's cost
-    has a table-bytes component — see BENCH_HISTORY.md).
+    the gather's source table shrinks by a third.
 
     Gathers 18 (+1) values per particle: 8 neighbor wih + 8 neighbor flow
     + center wih + center flow (+ center plants)."""
@@ -182,10 +180,9 @@ def _gather_step_values_wf(combo, row_i, col_i, res, fhc, with_plants=False,
 
 def _gather_patches(combo, row_i, col_i, res: int, k: int):
     """Patch prefetch: one gather fetching a (2k+1)² window of all three
-    maps around each particle.  A TPU gather has a large fixed cost, so
-    fetching 3·(2k+1)² values per particle every k steps beats one small
-    gather per step ~k-fold; the in-between steps read the patch with
-    one-hot contractions (no gather).  Window start is clamped so the
+    maps around each particle, every k steps instead of one small gather
+    per step; the in-between steps read the patch with one-hot
+    contractions (no gather).  Window start is clamped so the
     patch stays in-grid; every clipped neighbor index of every position
     reachable within k-1 steps lands inside it.
 
@@ -220,9 +217,9 @@ def _patch_step_values(patch_ctx, row_i, col_i, res: int):
     ohr = (lr[:, :, None] == iota).astype(_F32)            # [N, 3, P]
     ohc = (lc[:, :, None] == iota).astype(_F32)
     # elementwise broadcast-multiply-sum, NOT einsum: a batched [3,P]×[P,P]
-    # matmul dispatches N tiny MXU ops (measured ~0.4 ms/step — ruinous)
-    # and default TPU dot precision is bf16 (breaks bit-exactness); the
-    # VPU form fuses and keeps f32 (products are exactly 0 or x)
+    # matmul would dispatch N tiny matrix products and could run at reduced
+    # precision (TF32/bf16 breaks bit-exactness); the elementwise form
+    # fuses and keeps f32 (products are exactly 0 or x)
     tmp = jnp.sum(
         ohr[:, None, :, :, None] * patches[:, :, None, :, :], axis=3
     )                                                      # [N, 3, 3, P]
@@ -462,12 +459,9 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
 
     ``patch_k``: steps served per patch prefetch (see _gather_patches) —
     divides ``chunk``; the per-step map reads then cost one-hot
-    contractions instead of gathers.  Default 0 (one gather per step):
-    measured on TPU v5e, gather cost stops being fixed around ~25K
-    elements (~200M elem/s random-access beyond), so the 243·N patch
-    gather costs ~10× a 10·N step gather and the prefetch LOSES ~5×
-    (51 vs 11 ms per 1000-particle descent at 2048²).  The path is kept
-    (bit-exact, tested) for hardware where the trade flips.
+    contractions instead of gathers.  Default 0 (one gather per step);
+    the prefetch path is bit-exact and tested, and its cost on the GPU
+    is not measured yet.
     """
     steps = (params.MAXAGE + 1) if max_steps is None else max_steps
     n_chunks = -(-steps // chunk)
@@ -492,9 +486,7 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
             f"got table_layout={table_layout!r} with patch_k={patch_k}")
     if table_layout == "wf":
         # two-map table: neighbor all-heights recomputed post-gather
-        # (bit-exact — see _gather_step_values_wf).  Measured on v5e the
-        # extra 8 gathered values outweigh the smaller table (18.7 vs
-        # 16.1 ms per 1000×101 descent) — kept opt-in, not default
+        # (bit-exact — see _gather_step_values_wf); opt-in, not default
         pieces = [wih_map.reshape(-1), state.flow.reshape(-1)]
     else:
         all_h = wih_map + params.FLOW_HEIGHT_CONTRIBUTION * state.flow
@@ -576,13 +568,13 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
         pool_acc = zeros.at[bidx].add(bdp)
         sed_acc = zeros.at[bidx].add(bds)
     else:
-        # Alive-compaction cascade: the descent gather is element-
-        # throughput-bound (~11 cycles/element), so once the live count
-        # fits a narrower buffer, a stable alive-first compaction halves
-        # the per-step gather (and all per-particle math).  Stability
-        # preserves the relative slot order of survivors, so per-cell
-        # scatter accumulation order — and therefore every f32 sum — is
-        # unchanged (dead slots only ever add 0.0).
+        # Alive-compaction cascade: once the live count fits a narrower
+        # buffer, a stable alive-first compaction halves the per-step
+        # gather (and all per-particle math).  Stability preserves the
+        # relative slot order of survivors, so per-cell scatter
+        # accumulation order — and therefore every f32 sum — is unchanged
+        # where scatters apply in order (the CPU); on a GPU duplicate-cell
+        # scatter-adds are atomics whose order varies from run to run.
         # Levels: N, N/2, N/4, N/8 (floor 64 slots).
         n0 = p.row.shape[0]
         levels = [n0]

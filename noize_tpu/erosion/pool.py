@@ -12,7 +12,7 @@ higher than the cell's *land* is a drain (all water leaves — either
 committed to the neighbor or re-emitted as a drain particle); otherwise up
 to 25% of the head difference equalizes in/out.
 
-TPU-first: the whole grid computes each phase under the lattice mask;
+Design: the whole grid computes each phase under the lattice mask;
 within a cell the 4 sorted sub-steps run as a vectorized sequential chain
 (exactly the reference's per-cell serial order); cross-cell neighbor
 deltas accumulate via shifted adds and apply at phase end.  The reference
@@ -42,8 +42,8 @@ _F32 = jnp.float32
 #: Per-cell activity gate — reference parity: SpreadPool skips every
 #: sub-step while ``hWater < 1E-3f`` (LiveErosionDataTypes.cs:972), so a
 #: cell below this much water makes no transfers and cannot drain.
-#: Consequence (used by the call/launch-level skip gates here and in
-#: pool_pallas): a grid where NO cell reaches this gate is a bit-exact
+#: Consequence (used by the call-level skip gates here and in
+#: erosion.sim._gated_pool): a grid where NO cell reaches this gate is a bit-exact
 #: FIXED POINT of the automata — every ``can`` is false, every transfer
 #: and drain is exactly 0, the pool is unchanged, and by induction every
 #: later phase is a no-op too.  Particle pool deposits are
@@ -72,7 +72,7 @@ def _phase_mask(res: int, xoff: int, zoff: int):
 
 def _phase_mask_from_coords(grow, gcol, xoff: int, zoff: int):
     """Same lattice from (possibly shifted) global coordinate grids —
-    used by the halo-extended pallas path."""
+    used by halo-extended (sharded) windows."""
     j = (grow - zoff) // 2
     row_active = (grow % 2) == (zoff % 2)
     col_parity = (xoff + j) % 2
@@ -112,9 +112,8 @@ def _spread_phase(height, pool, mask, drain_particles: bool, border=None):
     n_height = [shift_clamped(height, dr, dc) for (dr, dc) in _DIRS]
     n_water = [shift_clamped(pool, dr, dc) for (dr, dc) in _DIRS]
     # Ascending rank of the 4 neighbors per cell by (current, direction) via
-    # pairwise comparisons — no argsort / take_along_axis gathers, which
-    # lower terribly on TPU (measured 6+ms per phase at 256² with the
-    # gather formulation).  See _phase_core.
+    # pairwise comparisons — no argsort / take_along_axis gathers, so the
+    # phase stays one elementwise fusion.  See _phase_core.
     new_pool, deltas, drain_out = _phase_core(
         n_height, n_water, height, pool, mask, drain_particles
     )
@@ -134,7 +133,7 @@ def _spread_phase(height, pool, mask, drain_particles: bool, border=None):
 
 def _shift_zero(a, dz: int, dc: int):
     """out[r] = a[r + (dz, dc)] with zeros outside.  Concatenated slices,
-    not jnp.pad — Mosaic-safe (see ops.flow.shift_clamped)."""
+    not jnp.pad (see ops.flow.shift_clamped)."""
     out = a
     if dz > 0:
         z = jnp.zeros((dz,) + out.shape[1:], out.dtype)
@@ -211,8 +210,8 @@ def _phase_core(n_height, n_water, h_land, pool_snapshot, geo_mask,
     snapshot through); deltas/drain_out are giver-indexed per-direction
     transfer volumes.
 
-    Op-count notes (this core dominates flagship erosion time — see
-    BENCH_HISTORY round 3): vs the earlier 4-field sorting-network form,
+    Op-count notes (this core is the pool automata's inner loop): vs the
+    earlier 4-field sorting-network form,
     this (a) ranks with 6 pairwise compares where ties resolve statically
     (for d < d', "d before d'" ⟺ key_d <= key_d'), (b) folds the
     give/take branches into one clamp — for non-drain cells the transfer
@@ -232,8 +231,7 @@ def _phase_core(n_height, n_water, h_land, pool_snapshot, geo_mask,
     # ties in direction-enumeration order — matching the reference's
     # FloodedNeighbor sort with deterministic tie handling).  Computed in
     # f32: the values are exact small integers either way, and f32
-    # select/add beats i32 cast/add on the VPU by ~8% of the whole fused
-    # pool call (measured, scripts/probe_pool_ablate2.py).
+    # select/add avoids an i32 cast per compare.
     one = jnp.float32(1.0)
     zero = jnp.float32(0.0)
     a01 = jnp.where(keys[0] <= keys[1], one, zero)
@@ -265,8 +263,7 @@ def _phase_core(n_height, n_water, h_land, pool_snapshot, geo_mask,
 
     def pick_bool(e, f):
         """Bool-field variant of pick: masked or-reduction over the
-        permutation (jnp.where on i1 operands hits an unsupported i8→i1
-        truncation in Mosaic)."""
+        permutation."""
         return ((hits[0][e] & f[0]) | (hits[1][e] & f[1])
                 | (hits[2][e] & f[2]) | (hits[3][e] & f[3]))
 
@@ -305,9 +302,8 @@ def _phase_core(n_height, n_water, h_land, pool_snapshot, geo_mask,
 
     all_d = demux(moved_s)
     if drain_particles:
-        # Split the drain volume off AFTER one combined demux (the demux
-        # selects measured ~2× the average op cost in the fused kernel —
-        # see BENCH_HISTORY round 3 ablation).  A drain empties the cell
+        # Split the drain volume off AFTER one combined demux (one demux
+        # instead of two).  A drain empties the cell
         # (h_water − h_water = exactly 0 < the 1e-3 gate) and ``can`` is
         # monotone non-increasing across sub-steps (gives can only push
         # h_water below the gate, takes raise it but require can), so a
@@ -337,21 +333,19 @@ def _phase_core(n_height, n_water, h_land, pool_snapshot, geo_mask,
     return h_water, deltas, drain_out
 
 
-def _pair_iotas(shape, row0: int):
-    j = jax.lax.broadcasted_iota(jnp.int32, shape, 0) + row0
+def _pair_iotas(shape):
+    j = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
     col = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
     return j, col
 
 
-def _pair_geo_mask(shape, xoff: int, res: int, row0: int = 0):
+def _pair_geo_mask(shape, xoff: int):
     """Geometric lattice mask for one phase on the pair layout: column
-    parity per lattice row j ∧ in-bounds rows (window ghost rows are
-    inactive).  Depends on ``xoff`` ONLY — both zoff orientations of a
-    phase share the same mask, so callers hoist one mask per xoff."""
-    r2 = res // 2
-    j, col = _pair_iotas(shape, row0)
-    mask = (col % 2) == ((xoff + j) % 2)
-    return mask & (j >= 0) & (j < r2)
+    parity per lattice row j.  Depends on ``xoff`` ONLY — both zoff
+    orientations of a phase share the same mask, so callers hoist one mask
+    per xoff."""
+    j, col = _pair_iotas(shape)
+    return (col % 2) == ((xoff + j) % 2)
 
 
 def _shift_down_row(x):  # out[k] = x[k-1]; row 0 value unused (where'd out)
@@ -362,14 +356,14 @@ def _shift_up_row(x):    # out[k] = x[k+1]; last row unused
     return jnp.concatenate([x[1:], x[-1:]], 0)
 
 
-def _pair_pre(a_h, c_h, zoff: int, res: int, row0: int = 0):
+def _pair_pre(a_h, c_h, zoff: int, res: int):
     """Phase-invariant precompute for _phase_pair: the four neighbor-height
     maps and the ``h_land >= n_height`` drain-eligibility compares.
-    Heights never change during pool automata, so callers (the XLA scan
-    and the fused pallas kernels) compute this ONCE per pool call / launch
-    per lattice orientation instead of once per phase."""
+    Heights never change during pool automata, so callers compute this
+    ONCE per pool call per lattice orientation instead of once per
+    phase."""
     r2 = res // 2
-    j, _ = _pair_iotas(a_h.shape, row0)
+    j, _ = _pair_iotas(a_h.shape)
     if zoff == 0:
         up_h = c_h                                               # z+1 = C[j]
         down_h = jnp.where(j == 0, a_h, _shift_down_row(c_h))    # z-1; j=0 self
@@ -383,8 +377,7 @@ def _pair_pre(a_h, c_h, zoff: int, res: int, row0: int = 0):
 
 
 def _phase_pair(a_h, c_h, a_p, c_p, xoff: int, zoff: int,
-                drain_particles: bool, res: int, row0: int = 0,
-                pre=None, geo_mask=None):
+                drain_particles: bool, res: int, pre=None, geo_mask=None):
     """One phase on the (active, complement) row-lattice pair.
 
     ``a_*`` are the ACTIVE rows for this phase (z ≡ zoff mod 2), ``c_*``
@@ -393,19 +386,14 @@ def _phase_pair(a_h, c_h, a_p, c_p, xoff: int, zoff: int,
     chain without reshape churn (composing split→join per phase made XLA's
     simplifier blow up compile time).
 
-    ``row0``: global lattice row of array row 0.  The pallas pair kernel
-    passes halo windows with row0 = block_start - halo; rows mapping
-    outside [0, res/2) are ghosts (masked inactive), and all border logic
-    keys on the global lattice row.
-
     ``pre`` / ``geo_mask``: hoisted _pair_pre / _pair_geo_mask results
     (phase-invariant; recomputed here when not supplied)."""
     r2 = res // 2
-    j, col = _pair_iotas(a_p.shape, row0)
+    j, col = _pair_iotas(a_p.shape)
     if geo_mask is None:
-        geo_mask = _pair_geo_mask(a_p.shape, xoff, res, row0)
+        geo_mask = _pair_geo_mask(a_p.shape, xoff)
     if pre is None:
-        pre = _pair_pre(a_h, c_h, zoff, res, row0)
+        pre = _pair_pre(a_h, c_h, zoff, res)
 
     # vertical water neighbors from the complementary lattice (clamped at
     # the global border by substituting the active row itself — SafeIdx
@@ -503,16 +491,13 @@ def _lshift_col(x):
 
 def _phase_quad(h_act, h_side, h_c_p, h_c_q,
                 p_act, p_side, p_c_p, p_c_q,
-                xoff: int, zoff: int, drain_particles: bool, res: int,
-                row0: int = 0):
+                xoff: int, zoff: int, drain_particles: bool, res: int):
     """One phase in quadrant space.
 
     ``*_act``: the active quad (lattice zoff, diagonal parity p=xoff);
     ``*_side``: the sibling quad (same lattice, parity p^1) — left/right
     neighbor source and target; ``*_c_p`` / ``*_c_q``: complement-lattice
-    quads with parity p / p^1 — up/down sources and targets.  All arrays
-    share the row range [row0, row0 + nrows) in lattice-row coordinates
-    (row0 < 0 rows are window ghosts, masked inactive).
+    quads with parity p / p^1 — up/down sources and targets.
 
     Returns (new_p_act, new_p_side, new_p_c_p, new_p_c_q,
              d_act, d_side, d_c_p, d_c_q) — the last four are THIS phase's
@@ -520,12 +505,12 @@ def _phase_quad(h_act, h_side, h_c_p, h_c_q,
     r2 = res // 2
     q = res // 2
 
-    j = jax.lax.broadcasted_iota(jnp.int32, p_act.shape, 0) + row0
+    j = jax.lax.broadcasted_iota(jnp.int32, p_act.shape, 0)
     k = jax.lax.broadcasted_iota(jnp.int32, p_act.shape, 1)
     u = (j + xoff) % 2          # global col c = 2k + u
     u0 = u == 0
     u1 = u == 1
-    inb = (j >= 0) & (j < r2)
+    every_cell = jnp.ones(p_act.shape, bool)  # every quad cell is active
 
     def shift_down_row(x):   # out[j] = x[j-1]; row 0 clamped (masked off)
         return jnp.concatenate([x[:1], x[:-1]], 0)
@@ -567,7 +552,7 @@ def _phase_quad(h_act, h_side, h_c_p, h_c_q,
 
     h_water, deltas, drain_out = _phase_core(
         [n0_h, n1_h, n2_h, n3_h], [n0_w, n1_w, n2_w, n3_w],
-        h_act, p_act, inb, drain_particles,
+        h_act, p_act, every_cell, drain_particles,
     )
 
     # --- scatter (per-cell add order mirrors _phase_pair's) -----------------
@@ -612,7 +597,7 @@ _PHASE_ORDER = tuple((xo, zo) for xo in (0, 1) for zo in (0, 1))
 
 
 def _quad_phase_step(h_quads, p_quads, xoff: int, zoff: int,
-                     drain_particles: bool, res: int, row0: int = 0):
+                     drain_particles: bool, res: int):
     """Apply one phase to the quad dict {(lat, parity): array} where lat is
     0 (even global rows) or 1 (odd).  Returns (new_p_quads, drain_quads)."""
     A, C = (0, 1) if zoff == 0 else (1, 0)
@@ -624,7 +609,7 @@ def _quad_phase_step(h_quads, p_quads, xoff: int, zoff: int,
         p_quads[(C, p)], p_quads[(C, 1 - p)],
     )
     na, ns, ncp, ncq, da, ds, dcp, dcq = _phase_quad(
-        *args, xoff, zoff, drain_particles, res, row0=row0
+        *args, xoff, zoff, drain_particles, res
     )
     new_p = {(A, p): na, (A, 1 - p): ns, (C, p): ncp, (C, 1 - p): ncq}
     drains = {(A, p): da, (A, 1 - p): ds, (C, p): dcp, (C, 1 - p): dcq}
@@ -652,8 +637,7 @@ _QKEYS = ((0, 0), (0, 1), (1, 0), (1, 1))
 @partial(jax.jit, static_argnames=("iterations", "drain_particles"))
 def pool_automata_quad(height, pool, iterations: int = 10,
                        drain_particles: bool = True):
-    """pool_automata on the diagonal-quadrant layout (XLA path; the pallas
-    kernel in pool_pallas shares _phase_quad).  Bit-exact with
+    """pool_automata on the diagonal-quadrant layout.  Bit-exact with
     pool_automata — same _phase_core ops, same per-cell add order."""
     res = height.shape[0]
     h_quads = _pack_quads(height)
@@ -721,7 +705,7 @@ def pool_automata(height, pool, iterations: int = 10, drain_particles: bool = Tr
     # computed once here and closed over by the branches
     pre_z = (_pair_pre(h_even, h_odd, 0, res),
              _pair_pre(h_odd, h_even, 1, res))
-    masks = {xo: _pair_geo_mask(p_even.shape, xo, res) for xo in (0, 1)}
+    masks = {xo: _pair_geo_mask(p_even.shape, xo) for xo in (0, 1)}
 
     # One phase per scan step, selected by lax.switch: XLA's optimizer cost
     # grows super-linearly when several phases are unrolled into one body

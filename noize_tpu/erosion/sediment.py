@@ -11,7 +11,7 @@ gaussian with clamped (edge-accumulating) indexing and a per-tap [0,1]
 "bad build breaker" skip (LiveErosionComponents.cs:130-150); large positive
 deltas go through the Manhattan-ring PileSolver.
 
-TPU-first: all cells disperse at once.  A clamped-scatter gaussian stamp is
+Design: all cells disperse at once.  A clamped-scatter gaussian stamp is
 exactly a full correlation whose out-of-range margins are *folded* onto the
 edge rows/columns (the adjoint of edge-clamped gather), and it is separable
 because SafeIdx clamps each axis independently.  The [0,1] breaker is
@@ -51,8 +51,8 @@ def _disperse_axis(s, taps, axis: int):
     clamp(c+d); out-of-range taps accumulate on the edge cell.
 
     Formulated as zero-fill shifted adds (symmetric taps ⇒ scatter ==
-    correlation) plus closed-form edge folds — overlapping
-    dynamic-update-slice accumulation serializes badly on TPU."""
+    correlation) plus closed-form edge folds, instead of overlapping
+    dynamic-update-slice accumulation, which serializes."""
     taps = np.asarray(taps, np.float32)
     k = len(taps)
     off = (k - 1) // 2
@@ -102,8 +102,8 @@ def pile_deposit(pile_map, radius: int):
 
     Profile note (PARITY.md D3): the exact solver's serial ring fill is
     approximated by a peaked bounded-support deposit; the separable tent
-    replaces an earlier Manhattan cone — a dense (2r+1)² convolution costs
-    ~850ms at 2048² on TPU, two 1-D passes ~1ms."""
+    replaces an earlier Manhattan cone: two 1-D passes instead of a dense
+    (2r+1)² convolution."""
     if radius not in _TENT_CACHE:
         _TENT_CACHE[radius] = _triangle_taps(radius)
     taps = _TENT_CACHE[radius]
@@ -115,7 +115,7 @@ def pile_deposit(pile_map, radius: int):
 # Manhattan-ring algorithm, including its quirks — duplicate ring vertices
 # with desynchronized value caches, modified-only commits with last-write-
 # wins, out-of-bounds vertices skipped.  The default tent profile
-# (pile_deposit) is the TPU-fast approximation; this path exists for
+# (pile_deposit) is the fast approximation; this path exists for
 # parity scrutiny (PARITY.md D3) and small/interactive runs.
 # Reference: PileSolver / ManhattanVertex, LiveErosionDataTypes.cs:1052-1228.
 
@@ -183,7 +183,7 @@ def _solve_pile(vals0, valid, amount, increment, radius: int):
     The solver state is the per-slot value cache ``vals`` — duplicates of
     the same cell hold independent copies (the reference's desync is part
     of the algorithm).  Each visit is an elementwise one-hot update over
-    the ~S slot vector; dynamic per-visit indexing would be a TPU gather
+    the ~S slot vector; dynamic per-visit indexing would be a gather
     per step.  Shared verbatim by the single-device commit path
     (_handle_pile) and the sharded sparse solve
     (parallel.sharded_erosion._sharded_write_sediment_exact) so the f32

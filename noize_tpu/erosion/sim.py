@@ -49,80 +49,25 @@ from .world import WorldState, update_flow_from_track, curvature_map
 _F32 = jnp.float32
 
 
-def _pool_kernel_plan(res: int, iterations: int, on_tpu: bool):
-    """Measured pool-kernel ladder (BENCH_HISTORY r5 slopes;
-    scripts/probe_pool_mega.py + probe_mega_sizes.py + probe_mega_4096.py,
-    every rung bit-exact on chip):
-
-      1024²: pair-fused b256/ppl4 1.25 < mega 1.60 ms/call — per-group
-             launches win when the whole call is ~1 ms (the mega
-             cross-group ping-pong serializes more than the saved
-             launches cost);
-      1536²: pair-fused b128/ppl8 2.91 < mega b128/ppl4 3.83 — the
-             crossover is bracketed between 1536 and 2048, measured on
-             both sides (probe_pool_1536);
-      2048²: mega b256/ppl4 6.26 < pair 6.64;
-      4096²: mega b128 is the ONLY kernel the TPU compile accepts
-             (pair b256/b128 and mega b256 all fail) and runs 4× the
-             XLA path (29.8 vs 119.5) — a 2.5 MB/window cap reproduces
-             the working geometry at each width while keeping b256 at
-             2048.
-
-    Returns ``("mega"|"pair"|"xla", block, phases_per_launch)``; pure so
-    the ladder is unit-testable on CPU (the kernels themselves are
-    TPU-only)."""
-    if not on_tpu or res % 256 != 0:
-        return ("xla", None, None)
-    n_ph = 4 * iterations
-    r2 = res // 2
-    if res >= 2048:
-        from ..ops.pallas.blocks import pick_block
-
-        return ("mega", pick_block(r2, 8, cols=res, cap_bytes=2_500_000), 4)
-    if r2 % 256 == 0:
-        return ("pair", 256, 4)
-    return ("pair", 128, 8 if n_ph % 8 == 0 else 4)
-
-
 @lru_cache(maxsize=None)
 def _gated_pool(iterations: int, drain_particles: bool):
-    """Pool-automata dispatch with a BATCH-level wetness gate.
+    """Pool automata with a BATCH-level wetness gate.
 
-    Unbatched, this is exactly the kernel ladder below (single-launch
-    pallas mega kernel on TPU at production sizes, XLA half-row path
-    elsewhere), whose
-    internal call-level gates already skip below-gate-dry grids bit-exactly
-    (see pool.MIN_WATER).  Under ``vmap`` (the tile_batch serving path)
-    those internal ``lax.cond`` gates degrade to ``select`` — both branches
-    execute — so every batched cold-start tile would pay the full kernel
+    Unbatched, this is ``pool.pool_automata``, whose internal call-level
+    gates already skip below-gate-dry grids bit-exactly (see
+    pool.MIN_WATER).  Under ``vmap`` (the tile_batch serving path) those
+    internal ``lax.cond`` gates degrade to ``select`` — both branches
+    execute — so every batched cold-start tile would pay the full automata
     the solo flagship skips.  The ``custom_vmap`` rule restores a SCALAR
-    any-tile-at-gate predicate around the mapped kernel: an all-dry batch
+    any-tile-at-gate predicate around the mapped automata: an all-dry batch
     skips entirely (bit-exact — each below-gate tile is a fixed point of
     the automata, returning (pool, 0) exactly as the unbatched gate does);
-    a mixed batch runs the kernel for all tiles, which is what vmap would
+    a mixed batch runs the automata for all tiles, which is what vmap would
     have done anyway.  Reference parity for the gate threshold:
     SpreadPool's per-cell ``hWater < 1E-3f continue``
     (LiveErosionDataTypes.cs:972)."""
 
     def raw(height, pool):
-        kind, blk, ppl = _pool_kernel_plan(
-            height.shape[0], iterations, jax.default_backend() == "tpu")
-        if kind == "mega":
-            from .pool_pallas import pool_automata_pallas_mega
-
-            return pool_automata_pallas_mega(
-                height, pool, iterations=iterations,
-                drain_particles=drain_particles, block=blk,
-                phases_per_launch=ppl,
-            )
-        if kind == "pair":
-            from .pool_pallas import pool_automata_pallas_pair_fused
-
-            return pool_automata_pallas_pair_fused(
-                height, pool, iterations=iterations,
-                drain_particles=drain_particles, block=blk,
-                phases_per_launch=ppl, unroll=True,
-            )
         return pool_automata(
             height, pool, iterations=iterations,
             drain_particles=drain_particles,
@@ -191,13 +136,7 @@ def _spawn_with_drains(key, n, res, drain_water):
     fresh = match_vma(spawn(k1, n, res), flat)
 
     def with_drains(flat):
-        if flat.shape[0] > 4 * n and jax.default_backend() == "tpu":
-            # exact top_k over R² cells is a full sort on TPU; hardware
-            # approx_max_k recall is ~0.95 and any missed drain water
-            # re-enters the pool map, so nothing is lost
-            vals, idxs = jax.lax.approx_max_k(flat, n)
-        else:
-            vals, idxs = jax.lax.top_k(flat, n)
+        vals, idxs = jax.lax.top_k(flat, n)
         has_drain = vals > 0.0
         rows = (idxs // res).astype(_F32)
         cols = (idxs % res).astype(_F32)
@@ -252,26 +191,13 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     world = state.world
     behavior = settings.BEHAVIOR
 
-    # 1. thermal (LiveErosion.cs:384-386) — fused single-launch pallas
-    # kernel on TPU (1.1 ms vs 2.9 ms XLA at 2048², bit-exact on chip)
+    # 1. thermal (LiveErosion.cs:384-386)
     if settings.ENABLE_THERMAL and behavior != ErosionMode.ONLY_FLOW_WATER:
-        import jax as _jax0
-
-        hw_ratio = float(meta.tile_size) / float(meta.height)
-        if (_jax0.default_backend() == "tpu" and res % 128 == 0
-                and 8 * settings.THERMAL_CYCLES <= 128):
-            from ..ops.pallas.thermal_pl import thermal_erosion_fused
-
-            new_height = thermal_erosion_fused(
-                world.height, settings.TALUS, settings.THERMAL_STEP,
-                hw_ratio, iterations=settings.THERMAL_CYCLES, block=128,
-            )
-        else:
-            new_height = thermal_erosion(
-                world.height, settings.TALUS, settings.THERMAL_STEP,
-                hw_ratio, iterations=settings.THERMAL_CYCLES,
-            )
-        world = replace(world, height=new_height)
+        world = replace(world, height=thermal_erosion(
+            world.height, settings.TALUS, settings.THERMAL_STEP,
+            float(meta.tile_size) / float(meta.height),
+            iterations=settings.THERMAL_CYCLES,
+        ))
 
     drain_water = state.drain_water
     key = state.key
@@ -306,16 +232,9 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     # 6. track → flow decay + surface evaporation (UpdateFlowFromTrackJob)
     world = update_flow_from_track(world, params, height_scale)
 
-    # 7. pool automata (PoolAutomataJob) — pallas VMEM-resident phases on
-    # TPU at production sizes, XLA half-row path elsewhere.  Kernel choice
-    # is measured (BENCH_HISTORY.md): the half-row PAIR layout with all 4
-    # phases of a water step fused per launch, statically unrolled, with
-    # UNPADDED scan carries (the kernel clamps its own carry DMA windows —
-    # round 4).  Rejected by measurement: diagonal-quadrant variants
-    # (25-30 ms), padded carries with manual output DMAs (loses write-back
-    # pipelining), patch/pad-glue theories (BENCH_HISTORY r4).  The
-    # _gated_pool wrapper adds a batch-level wetness gate so the vmapped
-    # tile_batch path skips all-dry batches the way the solo path does.
+    # 7. pool automata (PoolAutomataJob); the _gated_pool wrapper adds a
+    # batch-level wetness gate so the vmapped tile_batch path skips
+    # all-dry batches the way the solo path does
     pool, drains = _gated_pool(
         settings.WATER_STEPS,
         behavior != ErosionMode.ONLY_FLOW_WATER,

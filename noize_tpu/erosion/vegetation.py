@@ -119,7 +119,7 @@ def grow_cycle(key, plants: Plants, state: WorldState, ptype: PlantType,
                moisture_gain: int = 10, drought_loss: int = 4,
                erosion_shock: int = 10, mature_at: int = 80) -> Plants:
     """Beyond-parity growth/decay cycle (the reference's Grow is an empty
-    stub — Vegetation.cs:61-63; this is the TPU framework's extension of
+    stub — Vegetation.cs:61-63; this is this framework's extension of
     the surface the Plant struct clearly reaches for).
 
     Per cycle, vectorized over all plant slots:

@@ -5,7 +5,7 @@ Reference: ``ComputeFlowStep`` / ``UpdateWaterStep`` / ``CreateVelocityField``
 (/root/reference/Geologic/FlowMap/FlowMapComponents.cs:16-204), orchestrated
 by ``FlowMapStage.ScheduleAll`` (Geologic/Stage/FlowMapStage.cs:124-195).
 
-TPU-first design (SURVEY.md §3.4): the reference schedules ``iterations``
+Design (SURVEY.md §3.4): the reference schedules ``iterations``
 pairs of row-parallel jobs with explicit double-buffer swap copies; here the
 whole relaxation is one ``lax.scan`` over a pure step function — the
 double-buffering is implicit in functional updates and the swap copies
@@ -39,8 +39,8 @@ WATER_INIT = 1e-4  # FlowMapStage.cs:129
 def shift_clamped(a, dz: int, dx: int):
     """out[z, x] = a[clamp(z + dz), clamp(x + dx)] — edge-replicated shift.
 
-    Built from concatenated slices (not jnp.pad): pad's lowering emits
-    zero-sized intermediates that Mosaic rejects inside pallas kernels."""
+    Built from concatenated slices (not jnp.pad), so the phase bodies that
+    share it lower to plain slices and concatenates."""
     if dz > 0:
         rep = jnp.broadcast_to(a[-1:, :], (dz,) + a.shape[1:])
         a = jnp.concatenate([a[dz:, :], rep], axis=0)

@@ -4,11 +4,11 @@ Reference: ``FractalJob``/``FractalGenerator`` and the eight noise getters,
 ``/root/reference/Noise/Fractal/Fractal.cs:19-278``, configured by
 ``NoiseStage`` (``Noise/NoiseStage.cs:13-61``).
 
-TPU-first design: the reference dispatches one Burst job per tile row; here
-the whole ``(res, res)`` tile is one fused XLA computation.  The octave loop
+Design: the reference dispatches one Burst job per tile row; here the
+whole ``(res, res)`` tile is one fused XLA computation.  The octave loop
 is unrolled at trace time (octave count is static config, range [1, 24]),
-letting XLA fuse every octave's hash + gradient math into a single VPU
-kernel with no intermediate HBM traffic.
+letting XLA fuse every octave's hash + gradient math into a single
+elementwise kernel with no intermediate device-memory traffic.
 
 Formulas (Fractal.cs:109-138):
   * world coords:  xi = (x + xpos) / noiseSize, zi = (z + zpos) / noiseSize

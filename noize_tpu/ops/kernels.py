@@ -5,8 +5,8 @@ Reference: ``GenericKernelJob`` + ``KernelSampleX/ZOperator`` +
 KernelOperators.cs:18-118) and the tap tables / dispatch in
 ``SeparableKernelFilter`` (KernelJob.cs:96-307).
 
-TPU-first design: a 1-D pass is expressed as K edge-padded shifted adds,
-which XLA fuses into a single VPU loop — no per-row job scheduling, no
+Design: a 1-D pass is expressed as K edge-padded shifted adds, which XLA
+fuses into a single elementwise loop — no per-row job scheduling, no
 double-buffer copy-back (``TileHelpers.SWAP_RWTILE``) because updates are
 functional.  Borders replicate the edge sample, exactly matching the
 reference's clamped ``getIdx`` (TileData.cs:72-77).

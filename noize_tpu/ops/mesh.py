@@ -7,7 +7,7 @@ grid generators ``SquareGridHeightMap`` / ``OvershootSquareGridHeightMap`` /
 interleaved vertex streams (``PositionStream16/32``, ``TriangleUInt16/32`` —
 Mesh/Streams/*.cs).
 
-TPU-first design: the reference emits one Unity vertex row per job
+Design: the reference emits one Unity vertex row per job
 iteration into interleaved MeshData buffers.  Here the whole vertex grid is
 a handful of fused gather + finite-difference array ops returning an SoA
 ``MeshArrays`` pytree (positions/normals/tangents/uvs + triangle indices).
@@ -76,9 +76,8 @@ class MeshPlanes:
     [px, py, pz, nx, ny, nz, tx, ty, tz, tw, u, v] over the (R+1)² vertex
     grid, plus the flat triangle list.
 
-    This is the TPU-native layout — the vertex grid occupies the two minor
-    (tiled) dims, so emission is pure bandwidth with ~3% pad instead of the
-    ~42× lane/HBM waste of 3-wide minor axes.  ``to_arrays()`` (or the
+    The vertex grid occupies the two minor dims, so each component is one
+    dense plane instead of a 3/4/2-wide minor axis.  ``to_arrays()`` (or the
     field properties) materialize the interleavable ``MeshArrays`` SoA view
     for host consumers (bakery, export) — same math as the MeshArrays
     builders, agreeing to a few ulp (see ``vertex_plane_list``)."""
@@ -151,10 +150,8 @@ def vertex_plane_list(t, l, rgt, u, d, vx_f, vz_f, step, height, uv_denom):
     """Per-vertex elementwise math — positions/normals/tangents/uvs from
     the five height taps and f32 vertex coordinates, as TWELVE component
     planes [px, py, pz, nx, ny, nz, tx, ty, tz, tw, u, v] each of the
-    vertex-grid shape, stacked on axis 0 by the ``MeshPlanes`` assembly —
-    on TPU the two minor dims tile to (8, 128), so the (N, 3/4/2)-shaped
-    ``MeshArrays`` streams waste ~42× of every vector lane and HBM-write
-    byte while the [12, H, W] form pads ~3% (see BENCH_HISTORY round 3).
+    vertex-grid shape, stacked on axis 0 by the ``MeshPlanes`` assembly
+    (dense planes instead of the (N, 3/4/2)-shaped ``MeshArrays`` streams).
     Same math as ``vertex_fields`` (which keeps its stacked form for the
     shard_map bit-exactness guarantee — see its docstring); values agree
     to a few ulp (normals carry the sqrt/divide chain XLA fuses per-program).
@@ -271,8 +268,8 @@ def _squaregrid_taps(heights, r: int, off: int):
     """SquareGridHeightMap tap assembly: center-crop + edge-extrapolated
     neighbor taps.
 
-    Neighbor taps are slices of an edge-padded window (gather-free: fancy
-    indexing cost ~250ms at 2048² on TPU, slices are bandwidth-bound).
+    Neighbor taps are slices of an edge-padded window (gather-free: slices
+    are plain strided copies, fancy indexing would be a gather).
     The taps that would need clamping only feed lanes replaced by the
     InterpolateEdge branch below, so pad values never leak through."""
     t, l_in, r_in, u_in, d_in = _tap_slices(heights, r, off)
@@ -367,8 +364,8 @@ def heightmap_mesh_overshoot_planes(
 ):
     """``heightmap_mesh_overshoot`` in the component-major ``MeshPlanes``
     layout (same math; normals agree to a few ulp — see
-    ``vertex_plane_list``).  This is the production emission path on TPU —
-    see MeshPlanes."""
+    ``vertex_plane_list``).  The tile-batch serving path emits this
+    layout — see MeshPlanes."""
     r = resolution
     off = (input_resolution - r) // 2
     t, l, rgt, u, d = _tap_slices(heights, r, off)

@@ -1,4 +1,4 @@
-"""Gradient/cellular noise primitives, vectorized for TPU (JAX/XLA).
+"""Gradient/cellular noise primitives, vectorized with JAX/XLA.
 
 The reference (xshazwar/noize-job) consumes ``Unity.Mathematics.noise``
 primitives — ``cnoise`` (classic Perlin 2D/3D), ``snoise`` (simplex 2D/3D),
@@ -7,7 +7,7 @@ primitives — ``cnoise`` (classic Perlin 2D/3D), ``snoise`` (simplex 2D/3D),
 Those are ports of the public-domain/MIT "webgl-noise" algorithms (Ashima
 Arts / Stefan Gustavson).  Here we implement the same published algorithms
 directly in jnp, element-wise over whole grids, so a single XLA fusion
-evaluates the entire tile on the VPU (the grid itself is the parallel axis;
+evaluates the entire tile in one kernel (the grid itself is the parallel axis;
 there is no per-row job dispatch as in Burst — SURVEY.md §2.7).
 
 All functions take/return float32 arrays of identical shape and are safe to

@@ -18,7 +18,7 @@ xw, yz, yw, zw — ThermalErosionFilter.cs:70-77).  Phase decode
 preserved.)  maxDiff = tan((talus/90)·π/2)·heightRatio / res
 (ThermalErosionFilter.cs:135-136).
 
-TPU-first: each phase is a strided gather of the four block corners, a
+Design: each phase is a strided gather of the four block corners, a
 vectorized 6-step rectify chain, and a strided scatter — all phases of all
 iterations inside one jit/`lax.fori_loop`, no per-row jobs.
 """
@@ -76,8 +76,6 @@ _PHASE_OFFSETS = ((1, 2), (2, 2), (1, 1), (2, 1))
 
 # Edge-clamped shift: out[z, x] = a[z+dz, x+dx] (values outside the array
 # never survive the valid-block mask, clamping just keeps shapes).
-# shift_clamped is Mosaic-safe (concat-of-slices), so the phase body can
-# run inside pallas kernels.
 _shift = shift_clamped
 
 
@@ -158,9 +156,8 @@ def thermal_erosion(
     ``talus`` in degrees; ``increment_ratio`` = THERMAL_STEP;
     ``height_width_ratio`` = TILE_SIZE / HEIGHT (LiveErosion.cs:385).
 
-    Uses the mask/role phase formulation: the strided-slice variant's
-    stride-2 scatters cost ~75ms/phase at 2048² on TPU, the elementwise
-    masked variant is bandwidth-bound (~2ms/phase).
+    Uses the mask/role phase formulation: every phase is one elementwise
+    pass over the grid instead of stride-2 gathers and scatters.
     """
     res = data.shape[0]
     talus_rad = (talus / 90.0) * 3.14159 / 2.0

@@ -8,8 +8,11 @@ its two parallel dimensions map to a JAX mesh as:
         running whole independent tiles (the reference's no-communication
         tile model, preserved);
   * one large grid split spatially (the margin-overlap decomposition)
-      → ``x``/``y`` mesh axes: a single field sharded 2-D with ICI halo
-        exchange replacing redundant margin recompute (BASELINE config #5).
+      → ``x``/``y`` mesh axes: a single field sharded 2-D with halo
+        exchange between devices replacing redundant margin recompute
+        (BASELINE config #5).  The mesh follows the algorithm alone: on
+        GPUs the collectives go through NCCL, and the cards of one host are
+        joined all to all (NVLink).
 
 tp/pp/ep have no analog in this domain — there are no weight tensors,
 layer pipelines, or experts to shard; dp + sp are the real axes.

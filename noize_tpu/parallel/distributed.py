@@ -1,12 +1,13 @@
-"""Multi-host (DCN) initialization and meshes.
+"""Multi-host initialization and meshes.
 
 The reference is single-process shared memory (SURVEY.md §2.7); its
-"distributed communication backend" row maps to JAX's runtime: ICI
-collectives inside one slice (parallel.halo), ``jax.distributed`` across
-hosts over DCN.  This module is the multi-host entry point: initialize the
-runtime, build meshes whose *inner* axes ride ICI (halo exchange, tile
-groups) while only the outer tile-batch axis crosses DCN — tiles are
-independent, so DCN traffic stays at orchestration scale.
+"distributed communication backend" row maps to JAX's runtime: device
+collectives inside one host (parallel.halo), ``jax.distributed`` across
+hosts over the network.  This module is the multi-host entry point:
+initialize the runtime, build meshes whose *inner* axes stay inside a host
+(halo exchange, tile groups) while only the outer tile-batch axis crosses
+hosts — tiles are independent, so cross-host traffic stays at
+orchestration scale.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ def initialize(coordinator: Optional[str] = None,
 
 
 def multihost_tile_mesh() -> Mesh:
-    """('host', 'batch') mesh: host axis = DCN (independent tiles only),
-    batch axis = intra-host devices."""
+    """('host', 'batch') mesh: the host axis crosses hosts (independent
+    tiles only), the batch axis = intra-host devices."""
     n_local = jax.local_device_count()
     devices = np.array(jax.devices()).reshape(-1, n_local)
     return Mesh(devices, axis_names=("host", "batch"))
@@ -44,7 +45,7 @@ def multihost_tile_mesh() -> Mesh:
 
 def multihost_spatial_mesh() -> Mesh:
     """('host', 'x', 'y'): one spatial field per host group; halo exchange
-    stays on ICI within a host's devices, hosts own independent fields."""
+    stays among a host's devices, hosts own independent fields."""
     n_local = jax.local_device_count()
     nx = int(np.floor(np.sqrt(n_local)))
     while n_local % nx:

@@ -1,8 +1,8 @@
-"""ICI halo exchange for 2-D spatially sharded grids.
+"""Halo exchange for 2-D spatially sharded grids.
 
 Replaces the reference's margin-overlap recompute (GENERATOR_RES =
 TILE_RES + 2·margin — MeshTileGenerator.cs:166-169): instead of every tile
-regenerating a margin band, shards exchange edge strips over ICI with
+regenerating a margin band, shards exchange edge strips with
 ``lax.ppermute`` inside ``shard_map``.
 
 Boundary semantics: shards at the global border replicate their own edge

@@ -2,7 +2,7 @@
 
 The store's serializer (core.serde) materializes arrays to host via
 ``np.asarray``, which requires every shard to be addressable — true only
-single-process.  On a multi-host pod each process can address only its
+single-process.  On a multi-host mesh each process can address only its
 own devices' blocks, so checkpointing a P('x','y') world there must
 write per-process shard files.  This module does that on top of
 core.serde's file format (native checksummed writer, files.json
@@ -12,7 +12,7 @@ global index — under ``<root>/save__proc{k}_0/``, plus a
 
 Restore assumes the same process/mesh topology as the save (each process
 reads back exactly the blocks it owns under the target sharding) — the
-fixed-topology contract pod restarts satisfy.  Neither save nor restore
+fixed-topology contract multi-host restarts satisfy.  Neither save nor restore
 moves bytes across hosts.
 
 Reference: PipelineSerialization.cs:15-236 is the single-machine raw

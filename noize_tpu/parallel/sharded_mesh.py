@@ -66,8 +66,8 @@ def sharded_heightmap_mesh(mesh: Mesh, heights, resolution: int,
     "uvs"} global arrays of shape (R + nx, R + ny, C) sharded
     P('x','y', None) — bit-exact with the single-device MeshArrays path;
     "planes" returns {"planes": f32[12, R + nx, R + ny]} sharded
-    P(None, 'x', 'y') — the component-major TPU emission layout (the
-    vertex grid stays on the tiled minor dims; see ops.mesh.MeshPlanes),
+    P(None, 'x', 'y') — the component-major emission layout (the vertex
+    grid stays on the minor dims; see ops.mesh.MeshPlanes),
     values within a few ulp of "arrays" (ops.mesh.vertex_plane_list)."""
     r = resolution
     off = (input_resolution - r) // 2

@@ -1,6 +1,6 @@
 """Spatially-sharded (sp) versions of the field ops: noise, separable
-filters, flow map — one logical grid split over a 2-D device mesh with ICI
-halo exchange.
+filters, flow map — one logical grid split over a 2-D device mesh with halo
+exchange.
 
 Parity contract: each op here equals its single-device counterpart in
 noize_tpu.ops bit-for-bit up to float reassociation (edge-replicated halos
@@ -68,7 +68,8 @@ def sharded_fractal(mesh: Mesh, resolution: int, xpos, zpos, **kw):
             amp = amp * g
         return t / norm
 
-    return gen()
+    # one compiled program, not an eager op-by-op trace of the octave loop
+    return jax.jit(gen)()
 
 
 def _sharded_iterated_stencil(mesh: Mesh, data, local, hw: int,
@@ -79,8 +80,8 @@ def _sharded_iterated_stencil(mesh: Mesh, data, local, hw: int,
     iteration: the group rides a k·hw halo with validity shrinking hw per
     iteration, and global-border ghosts re-replicate their border cell
     after each iteration (clamp semantics — ghosts must track the border
-    between fused iterations).  ~1 ulp vs the single-device chain on XLA
-    CPU (FMA-contraction artifact); exact on TPU."""
+    between fused iterations).  Within ~1 ulp of the single-device chain
+    (FMA contraction differs between separately compiled programs)."""
     spec = P("x", "y")
     res_r, res_c = data.shape
     nx, ny = mesh.shape["x"], mesh.shape["y"]
@@ -114,7 +115,7 @@ def _sharded_iterated_stencil(mesh: Mesh, data, local, hw: int,
             block = ext[sl]
         return block
 
-    return run(data)
+    return jax.jit(run)(data)
 
 
 def sharded_kernel_filter(mesh: Mesh, data, filter_type: str, iterations: int = 1):
@@ -145,8 +146,7 @@ def sharded_thermal_erosion(mesh: Mesh, data, talus, increment_ratio,
     """thermal_erosion over a sharded field: the mask/role phase variant
     (ops.thermal.thermal_phase_masked) with ONE halo-8 exchange per
     iteration covering all 4 phases (validity shrinks 2 cells/phase).
-    Matches the single-device op exactly on TPU; ~1 ulp on XLA CPU (see
-    the in-body caveat)."""
+    Within ~1 ulp of the single-device op (see the in-body caveat)."""
     from ..ops import thermal as _t
 
     res = data.shape[0]
@@ -173,13 +173,13 @@ def sharded_thermal_erosion(mesh: Mesh, data, talus, increment_ratio,
 
         # ONE halo exchange per iteration (4 phases ride an 8-cell halo
         # with shrinking validity) instead of one per phase — 4× fewer
-        # ICI collective rounds.  No ghost reclamping is needed: thermal
+        # collective rounds.  No ghost reclamping is needed: thermal
         # blocks are anchored strictly inside the grid, so valid cells
         # never read out-of-grid ghosts.  One phase per scan step via
         # lax.switch (unrolled multi-phase bodies explode XLA compile).
-        # CPU caveat: XLA CPU FMA-contracts differently-fused but
-        # mathematically identical programs, so ~1% of cells differ from
-        # the single-device op by 1 ulp there (bit-exact on TPU).
+        # Caveat: XLA FMA-contracts differently-fused but mathematically
+        # identical programs differently, so ~1% of cells can differ from
+        # the single-device op by 1 ulp.
         branches = [
             (lambda x0, z0: lambda e: _t.thermal_phase_masked(
                 e, x0, z0, row0, col0, res, max_diff, increment_ratio))(
@@ -203,7 +203,7 @@ def sharded_thermal_erosion(mesh: Mesh, data, talus, increment_ratio,
 
         return lax.fori_loop(0, iterations, one_iter, block)
 
-    return run(data)
+    return jax.jit(run)(data)
 
 
 def sharded_flow_map(mesh: Mesh, height, iterations: int = 5,
@@ -215,11 +215,10 @@ def sharded_flow_map(mesh: Mesh, height, iterations: int = 5,
     (water/flows initialized in place) plus velocity + normalize runs on
     the extended block, validity shrinks 2 cells per iteration per side,
     and ghost cells beyond the GLOBAL border re-replicate their border
-    cell after every sub-step (clamp semantics) — the same scheme as the
-    single-chip fused pallas flow kernel (`ops.pallas.flow_pl`), extended
-    to ghosts on all four sides.  Matches ops.flow.flow_map exactly on
-    TPU, ~1 ulp on XLA CPU (FMA-contraction differences between
-    separately compiled programs); when the halo exceeds the shard block,
+    cell after every sub-step (clamp semantics), with ghosts on all four
+    sides.  Within ~1 ulp of ops.flow.flow_map (FMA-contraction
+    differences between separately compiled programs); when the halo
+    exceeds the shard block,
     iterations run in groups with one exchange per group."""
     spec = P("x", "y")
     res_r, res_c = height.shape
@@ -275,4 +274,4 @@ def sharded_flow_map(mesh: Mesh, height, iterations: int = 5,
         v = (v - norm_min) / rng
         return v[sl]
 
-    return run(height)
+    return jax.jit(run)(height)

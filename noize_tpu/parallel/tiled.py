@@ -11,17 +11,14 @@ Reference model (SURVEY.md §2.7): tiles are fully independent; the only
   * for the sp axis (one big field sharded spatially with halo exchange)
     see noize_tpu.parallel.sharded_ops.
 
-Batching strategy (measured, BENCH_HISTORY round 4): the stages want
-DIFFERENT batch lowerings.  Noise/blur amortize perfectly under ``vmap``
-(launch-overhead-dominated at T=1: 1.33 → flat 0.53 ms/tile), but vmapped
-particle descent DEGRADES with T — the all-dead early exit becomes global
-(every tile runs to the slowest tile's trip count) and the per-step
-gather/select work grows super-linearly (probe_batch_descent: 1.28 / 2.19
-/ 5.28 ms/tile at T=1/4/16), while ``lax.map`` descent holds ~0.9 ms/tile
-flat (probe_batch_descent2: 0.94 / 0.90 at T=4/16).  So ``tile_batch``
-vmaps the field stages and ``lax.map``s the erosion stage; the unbatched
-erosion body also keeps the pool automata's scalar wetness gate for free
-(no cond→select degradation).
+Batching strategy: the stages want DIFFERENT batch lowerings.  Noise and
+blur batch cleanly under ``vmap``, but vmapped particle descent makes the
+all-dead early exit global (every tile runs to the slowest tile's trip
+count).  So ``tile_batch`` vmaps the field stages and ``lax.map``s the
+erosion stage; the unbatched erosion body also keeps the pool automata's
+scalar wetness gate (no cond→select degradation).  Whether vmapped
+descent wins on a GPU, where one tile's particles cannot fill the card,
+is not measured yet.
 """
 
 from __future__ import annotations
@@ -107,7 +104,7 @@ def generate_tile(cfg: TilePipelineConfig, xpos, zpos, key):
     With ``cfg.emit_mesh`` returns ``{"height": f32[R, R], "mesh_planes":
     f32[12, tile_res+1, tile_res+1]}`` — the component-major vertex streams
     (ops.mesh.MeshPlanes planes; batching adds the batch axis in FRONT, so
-    the vertex grid stays on the TPU-tiled minor dims).  Triangle indices
+    the vertex grid stays on the minor dims).  Triangle indices
     are identical for every tile: take them once from
     ``ops.mesh.grid_indices(cfg.meta.tile_res)``."""
     h = _tile_height(cfg, xpos, zpos)
@@ -125,8 +122,8 @@ def _local_batch(cfg: TilePipelineConfig, xs, zs, keys):
     h = jax.vmap(lambda x, z: _tile_height(cfg, x, z))(xs, zs)
     if cfg.erosion is not None and cfg.erosion_cycles > 0:
         if h.shape[0] == 1:
-            # a 1-tile batch pays a measured ~0.3 ms for the lax.map scan
-            # wrapper — run the erosion body directly
+            # a 1-tile batch needs no lax.map scan wrapper — run the
+            # erosion body directly
             h = _tile_erode(cfg, h[0], keys[0])[None]
         else:
             h = jax.lax.map(
@@ -176,7 +173,10 @@ def tile_batch(cfg: TilePipelineConfig, origins: np.ndarray,
     (``fold_in(fold_in(key(seed), xpos), zpos)``), not its batch slot, so a
     tile's content is a pure function of (origin, seed) — the same tile
     re-requested later, or landing in a different batch, reproduces
-    bit-identically (generate_tile's purity contract).
+    bit-identically on the CPU (generate_tile's purity contract).  On a
+    GPU the particle-descent scatter-adds accumulate duplicate cells in a
+    run-dependent order, so a re-requested tile agrees only to float32
+    rounding (one H100: a few cells in a million differ, by about an ulp).
     """
     base = jax.random.PRNGKey(seed)
     oi = jnp.asarray(origins, jnp.int32)

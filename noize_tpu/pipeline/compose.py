@@ -5,7 +5,7 @@ Reference: ``PipelineDefinition``/``MaskedPipeline``/``StageMask``
 ``ReducePipeline``/``PipelineJoint`` (Pipeline/Executable/
 ReducePipeline.cs:18-166).
 
-TPU mapping (SURVEY.md L4): a pipeline is stage composition.  For chains of
+Device mapping (SURVEY.md L4): a pipeline is stage composition.  For chains of
 pure array stages, ``fuse`` produces ONE jitted function — the reference's
 eagerly-scheduled JobHandle DAG becomes a single XLA program with every
 elementwise op fused by the compiler.  Stages that touch the host (context

@@ -117,49 +117,6 @@ class StageGaussianBlur(Stage):
 
 
 @dataclass(frozen=True)
-class StageGaussianBlurFused(Stage):
-    """StageGaussianBlur accelerated by the Pallas VMEM-resident chain
-    (ops.pallas.stencil): all iterations in one kernel, one HBM round trip.
-    Falls back to the XLA chain off-TPU or on non-divisible resolutions."""
-
-    sigma: str = "s1d00"
-    width: int = 3
-    iterations: int = 1
-    block: int = None  # None → ops.pallas.blocks.pick_block (VMEM-aware)
-
-    def array_fn(self, data, io=None):
-        import jax
-
-        from ..ops.pallas import stencil as _ps
-
-        # gate on the block that will actually run: an explicit block must
-        # divide the row count; block=None defers to pick_block (candidates
-        # are multiples of 8).  Either can still fail for exotic shapes
-        # (VMEM window cap at extreme widths) — that surfaces as a
-        # trace-time ValueError, which falls back to the XLA chain.
-        divisible = (data.shape[0] % self.block == 0 if self.block
-                     else data.shape[0] % 8 == 0)
-        if (jax.default_backend() == "tpu"
-                and divisible
-                and data.shape[1] % 128 == 0  # lane-aligned full-width rows
-                and data.shape[0] == data.shape[1]):
-            try:
-                return _ps.gauss_chain(
-                    data, self.width, self.sigma, self.iterations, self.block
-                )
-            except ValueError:  # no viable row block — XLA path below
-                pass
-        for _ in range(self.iterations):
-            data = _blur.gauss_blur(data, self.width, self.sigma)
-        return data
-
-    def apply(self, work: PipelineWorkItem) -> PipelineWorkItem:
-        self.check_requirements(work, GeneratorData)
-        work.data = work.data.with_(data=self.array_fn(work.data.data))
-        return work
-
-
-@dataclass(frozen=True)
 class StageSmoothBlur(Stage):
     """Filter/Kernel/Blur/StageSmoothBlur.cs:13-55."""
 
@@ -187,19 +144,6 @@ class StageThermalErosion(Stage):
     meshHeightWidthRatio: float = 0.75
 
     def array_fn(self, data, io=None):
-        import jax as _jax
-
-        # fused single-launch pallas kernel on TPU (bit-exact on chip)
-        if (_jax.default_backend() == "tpu" and data.shape[0] % 128 == 0
-                and data.shape[0] == data.shape[1]
-                and 8 * self.iterations <= 128):
-            from ..ops.pallas.thermal_pl import thermal_erosion_fused
-
-            return thermal_erosion_fused(
-                data, float(self.talus), self.increment,
-                self.meshHeightWidthRatio, iterations=self.iterations,
-                block=128,
-            )
         return _thermal.thermal_erosion(
             data, float(self.talus), self.increment,
             self.meshHeightWidthRatio, iterations=self.iterations,
@@ -302,19 +246,6 @@ class FlowMapStage(Stage):
     normMax: float = 0.1
 
     def array_fn(self, data, io=None):
-        import jax as _jax
-
-        # single-launch fused pallas kernel on TPU (bit-exact; ~3-8× the
-        # XLA scan at production sizes), XLA path elsewhere
-        if (_jax.default_backend() == "tpu" and data.shape[0] % 128 == 0
-                and data.shape[0] == data.shape[1]
-                and 2 * self.iterations + 1 <= 128):
-            from ..ops.pallas.flow_pl import flow_map_fused
-
-            return flow_map_fused(
-                data, iterations=self.iterations, block=128,
-                norm_min=self.normMin, norm_max=self.normMax,
-            )
         return _flow.flow_map(
             data, iterations=self.iterations,
             norm_min=self.normMin, norm_max=self.normMax,

@@ -758,33 +758,3 @@ class TestGatedPoolBatchRule:
             np.testing.assert_array_equal(np.asarray(po[i]), np.asarray(rp))
             np.testing.assert_array_equal(np.asarray(dr[i]), np.asarray(rd))
 
-
-class TestPoolKernelPlan:
-    """The measured TPU pool-kernel ladder (sim._pool_kernel_plan) is pure
-    and must stay pinned to the round-5 on-chip findings: pair-fused wins
-    below 2048², the single-launch mega kernel wins at 2048², and only
-    mega with narrow blocks compiles at 4096+ (BENCH_HISTORY round 5;
-    the kernels themselves are TPU-only, so the plan is what CPU tests
-    can pin)."""
-
-    def test_cpu_or_odd_sizes_use_xla(self):
-        from noize_tpu.erosion.sim import _pool_kernel_plan
-        assert _pool_kernel_plan(2048, 10, on_tpu=False) == ("xla", None, None)
-        assert _pool_kernel_plan(1000, 10, on_tpu=True) == ("xla", None, None)
-
-    def test_small_grids_keep_pair_fused(self):
-        from noize_tpu.erosion.sim import _pool_kernel_plan
-        assert _pool_kernel_plan(1024, 10, on_tpu=True) == ("pair", 256, 4)
-        assert _pool_kernel_plan(512, 10, on_tpu=True) == ("pair", 256, 4)
-        # r2 not a multiple of 256 → narrow blocks, ppl8 when 8 | phases
-        assert _pool_kernel_plan(1792, 10, on_tpu=True) == ("pair", 128, 8)
-        assert _pool_kernel_plan(1792, 3, on_tpu=True) == ("pair", 128, 4)
-
-    def test_large_grids_use_mega_with_window_cap(self):
-        from noize_tpu.erosion.sim import _pool_kernel_plan
-        assert _pool_kernel_plan(2048, 10, on_tpu=True) == ("mega", 256, 4)
-        # 4096²: b256 windows fail the TPU compile — the cap must pick 128
-        assert _pool_kernel_plan(4096, 10, on_tpu=True) == ("mega", 128, 4)
-        # wider still: keep shrinking rather than widening past the cap
-        kind, blk, ppl = _pool_kernel_plan(8192, 10, on_tpu=True)
-        assert kind == "mega" and ppl == 4 and blk <= 64

@@ -95,7 +95,7 @@ class TestHeightmapMesh:
 
     @pytest.mark.parametrize("overshoot", [False, True])
     def test_planes_layout_bit_equal(self, overshoot):
-        """MeshPlanes (component-major, the TPU emission layout) must be
+        """MeshPlanes (component-major, the tile-batch emission layout) must be
         bit-identical to the MeshArrays trailing-dim layout — both stack
         vertex_plane_list."""
         r, input_r = 8, 12

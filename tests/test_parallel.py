@@ -150,8 +150,7 @@ class TestTileBatch:
             np.asarray(out8["mesh_planes"][1]), got, rtol=5e-7)
 
     def test_batch_with_erosion_matches_single(self):
-        """The hybrid batch (vmapped fields + lax.map'd erosion —
-        BENCH_HISTORY round 4) reproduces the solo generate_tile per tile,
+        """The hybrid batch (vmapped fields + lax.map'd erosion) reproduces the solo generate_tile per tile,
         on one device and sharded over the batch mesh."""
         from noize_tpu.erosion.params import ErosionSettings
 

@@ -192,13 +192,3 @@ class TestDriverErrors:
         p.stop()
         assert any("stage cascade failed" in r.message for r in caplog.records)
 
-
-class TestFusedBlurStage:
-    def test_fallback_matches_plain_stage(self):
-        a = jnp.asarray(RNG.uniform(0, 1, (64, 64)).astype(np.float32))
-        fused = S.StageGaussianBlurFused(sigma="s1d00", width=5,
-                                         iterations=3, block=32)
-        plain = S.StageGaussianBlur(sigma="s1d00", width=5, iterations=3)
-        got = fused.apply(PipelineWorkItem(data=gen(64, data=a))).data.data
-        want = plain.apply(PipelineWorkItem(data=gen(64, data=a))).data.data
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6)
